@@ -15,6 +15,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
+from stereo_tpu.utils import compile_cache
 from stereo_tpu.utils import viz
 from examples.run_global import build_model
 
@@ -78,6 +79,7 @@ def main():
     ap.add_argument("--maxiter-sim", type=int, default=10000)
     ap.add_argument("--outdir", default="/tmp")
     args = ap.parse_args()
+    compile_cache.enable()
 
     traces = [sweep_pair(p, args.dtype, args.seed, args.maxiter_sim,
                          args.outdir) for p in args.pairs]

@@ -9,6 +9,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
+from stereo_tpu.utils import compile_cache
 from stereo_tpu.config import CVPR08Options
 from stereo_tpu.models.global_stereo import DispMapGlobalStereo
 from stereo_tpu.utils import io
@@ -33,6 +34,7 @@ def main():
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    compile_cache.enable()
 
     dm = build_model(args.pair, args.dtype, args.seed)
 

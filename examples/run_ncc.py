@@ -15,6 +15,7 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import jax.numpy as jnp
 
+from stereo_tpu.utils import compile_cache
 from stereo_tpu import geometry
 from stereo_tpu.models.ncc import DispMapNCC
 from stereo_tpu.utils import io
@@ -28,10 +29,10 @@ def main():
     ap.add_argument("--skip-simultaneous", action="store_true")
     ap.add_argument("--schedule", default="banded",
                     help="TRW-S schedule for the simultaneous phase "
-                         "(banded|checkerboard|wavefront|scanline); banded "
-                         "measured fastest to energy at K=79 (round 4)")
+                         "(banded|checkerboard|wavefront|scanline)")
     ap.add_argument("--dtype", default="float32")
     args = ap.parse_args()
+    compile_cache.enable()
 
     pair = io.load_pair(args.pair, dtype=np.dtype(args.dtype))
     disparities = np.arange(0, args.max_disp + 1)

@@ -22,6 +22,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
+from stereo_tpu.utils import compile_cache
 from stereo_tpu.render import OcclRenderOptions, render_occl
 from stereo_tpu.render.edgemodes import render_edgemodes
 from stereo_tpu.utils import io
@@ -46,6 +47,7 @@ def main():
                     default="both")
     ap.add_argument("--out", default="/tmp/render")
     args = ap.parse_args()
+    compile_cache.enable()
 
     pair = io.load_pair(args.pair, dtype=np.float32)
     y0, y1, x0, x1 = args.crop

@@ -20,6 +20,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
+from stereo_tpu.utils import compile_cache
 from stereo_tpu.config import CVPR08Options
 from stereo_tpu.models.second_order import SecondOrderStereo, ojw_stereo
 from stereo_tpu.utils import io, viz
@@ -39,6 +40,7 @@ def main():
                     help="run the full proposal_method pipeline")
     ap.add_argument("--out", default="/tmp/second_order_disp.png")
     args = ap.parse_args()
+    compile_cache.enable()
 
     pair = io.load_pair(args.pair)
     y0, y1, x0, x1 = args.crop

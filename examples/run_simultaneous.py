@@ -12,6 +12,7 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 import numpy as np
 
+from stereo_tpu.utils import compile_cache  # noqa: E402
 from examples.run_global import build_model
 
 
@@ -25,10 +26,10 @@ def main():
                     choices=["checkerboard", "scanline", "wavefront",
                              "banded"])
     ap.add_argument("--band", type=int, default=128,
-                    help="block size for --schedule banded (128 measured "
-                         "fastest to the host's converged energy, round 3)")
+                    help="block size for --schedule banded")
     ap.add_argument("--max-relgap", type=float, default=1e-5)
     args = ap.parse_args()
+    compile_cache.enable()
 
     dm = build_model(args.pair, args.dtype, args.seed)
     dm.schedule = args.schedule

@@ -1,11 +1,11 @@
-"""stereo_tpu — a TPU-native 3D-label stereo reconstruction engine.
+"""stereo_tpu — a 3D-label stereo reconstruction engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 johannesu/stereo (CVPR'13 "In Defense of 3D-Label Stereo" and EMMCVPR'13
 "Simultaneous Fusion Moves for 3D-Label Stereo"): plane-label MRF stereo with
 truncated second-order smoothness, optimized by binary fusion moves (roof
 duality) and simultaneous multi-proposal fusion (TRW-S message passing) — all
-expressed as dense array programs over the pixel grid, sharded across TPU
+expressed as dense array programs over the pixel grid, sharded across
 device meshes with halo exchange.
 """
 

@@ -34,10 +34,8 @@ OPP: tuple[int, ...] = (1, 0, 3, 2)
 def take_plane(X: jax.Array, idx: jax.Array) -> jax.Array:
     """X[idx[s], s] for every site s: X [K, *S], idx [*S] int -> [*S].
 
-    One-hot masked sum instead of jnp.take_along_axis: per-site gathers over
-    a leading (label/level) axis scalarize on TPU (~80 ms per TRW-S decode at
-    baby2 K=15), while K masked plane passes are pure VPU work that XLA fuses
-    (~100x faster).
+    One-hot masked sum instead of jnp.take_along_axis over a leading
+    (label/level) axis: K masked plane passes that XLA fuses into one.
     """
     K = X.shape[0]
     iota = jnp.arange(K, dtype=jnp.int32).reshape((K,) + (1,) * idx.ndim)

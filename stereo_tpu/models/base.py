@@ -1,6 +1,6 @@
 """Model base: plane-label state + fusion drivers.
 
-The TPU-native counterpart of dispmap_super.m: owns the plane-label field
+The array-program counterpart of dispmap_super.m: owns the plane-label field
 [4, H, W], the per-direction smoothness weight maps [4, H, W], the cached
 energy, and the two fusion drivers (binary_fusion / binary_fuse_until
 convergence, dispmap_super.m:61-152; simultaneous_fusion :153-198).
@@ -300,8 +300,8 @@ class DispMap:
     # device executions are chunked so no single XLA invocation runs for
     # minutes (long single executions can trip device watchdogs); messages
     # warm-start across chunks, so the trajectory is identical.  Scanline
-    # sweeps cost ~70x a checkerboard sweep, hence the smaller chunk;
-    # wavefront sweeps ~40-60 ms, banded ~4-6 ms (v5e, baby2 K=15).
+    # and wavefront sweeps run H resp. H+W sequential steps, hence the
+    # smaller chunks.
     solver_chunk: int = 300  # ~60s worst case at K~80 baby2 scale
     solver_chunk_scanline: int = 50
     solver_chunk_wavefront: int = 150

@@ -12,7 +12,7 @@ claim visibility — encoded as a pairwise term of weight Kinf = occl_cost + 1
 between the occluder's pixel node and the occluded sample node
 (ibr_fuse_depths.m:104-127).
 
-TPU-native split: projection, photoconsistency and interaction detection are
+Device/host split: projection, photoconsistency and interaction detection are
 dense device programs (ops/photo, ops/interp, ops/interactions); the graph is
 assembled on the host and solved by the native QPBO (solvers/qpbo_host), the
 same device/host boundary as the reference's MATLAB/mex split.

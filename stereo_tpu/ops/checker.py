@@ -8,8 +8,8 @@ clean 2x compute waste.  Compacting each color's pixels into their own
 computed once, on the half-grid where it is selected.
 
 Layout.  Pixel (y, x) has color ``(y + x) % 2``.  Compacting along H keeps
-the lane (W) axis contiguous — the TPU-friendly choice (the sublane axis
-absorbs the halving; lane tiling is unchanged):
+the minor (W) axis contiguous, so the flattened half-grid is still dense rows
+of W pixels:
 
     V_c[..., yc, x] = V[..., 2*yc + (c + x) % 2, x]
 

@@ -1,6 +1,6 @@
 """Windowed filters: zero-padded box sums / means (the conv2 'same' of the
-reference's cost-volume builders) expressed as XLA reduce_window ops, which the
-TPU backend fuses and vectorizes."""
+reference's cost-volume builders) expressed as XLA reduce_window ops, which
+XLA fuses and vectorizes."""
 
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ sorted by projected x; every pair within ``dist`` in both x and y interacts,
 ordered (occluder, occluded) by depth z.  It emits a variable-length pair
 list into a bounded buffer (MAX_MEAN_INTERACTIONS per point).
 
-TPU-native form: static shapes — for each point a and each forward offset
+Array-program form: static shapes — for each point a and each forward offset
 o in 1..max_offsets, report whether (a, a+o) interact and which of the two
 occludes, as dense [N, O] masks.  Because x is sorted, all interactions of a
 lie within a bounded forward window (the same assumption as the mex's

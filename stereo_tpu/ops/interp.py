@@ -6,7 +6,7 @@ Semantics match imrender/vgg/vgg_interp2.cxx (linear path, :246-323):
 degenerates to exact edge interpolation, as the mex's explicit boundary
 branches do); out-of-bounds points get the scalar ``oobv``.
 
-On TPU this lowers to vectorized dynamic gathers; the sampling grids of the
+This lowers to vectorized dynamic gathers; the sampling grids of the
 cost-volume builders are affine in the pixel index, so XLA turns most uses
 into shifted dense reads.
 """

@@ -1,6 +1,6 @@
 """Normalized-cross-correlation cost volume and continuous-disparity sampling.
 
-TPU-native re-design of dispmap_ncc.m:116-276: the reference builds the NCC
+Array-program re-design of dispmap_ncc.m:116-276: the reference builds the NCC
 volume with per-disparity MATLAB conv2 calls inside a parfor over levels; here
 the disparity axis is the leading batch axis of one vectorized program — the
 windowed statistics are zero-padded box sums (XLA reduce_window) over
@@ -123,7 +123,7 @@ def _parabola_coeffs(ncc, disparities, t2, y2, ok):
     d = jnp.asarray(disparities, ncc.dtype)
     t1 = jnp.where(ok, t2 - 1, t2)
     t3 = jnp.where(ok, t2 + 1, t2)
-    # one-hot selections (take_plane): per-pixel gathers scalarize on TPU
+    # one-hot selections (take_plane) instead of per-pixel gathers
     D = ncc.shape[0]
     db = jnp.broadcast_to(d[:, None, None], (D,) + t2.shape)
     d1 = take_plane(db, t1)
@@ -162,8 +162,8 @@ def nearest_index(disparities, disp: jax.Array) -> jax.Array:
     db = jnp.broadcast_to(d.reshape((D,) + (1,) * disp.ndim),
                           (D,) + disp.shape)
     # rank of disp in the ascending grid (= searchsorted 'left'), computed as
-    # a full comparison sweep: log(D) binary-search gathers scalarize on TPU,
-    # D vectorized compares don't
+    # a full comparison sweep of D vectorized compares instead of log(D)
+    # binary-search gathers
     j = jnp.sum((db < disp[None]).astype(jnp.int32), axis=0)
     j = jnp.clip(j, 0, D - 1)
     jm = jnp.clip(j - 1, 0, D - 1)

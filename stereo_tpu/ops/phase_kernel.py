@@ -1,18 +1,25 @@
-"""Fused checkerboard-phase message kernel.
+"""Checkerboard-phase message update as a Pallas kernel through Triton.
 
-One pallas_call computes, for a pixel tile, the *selected and normalized*
-messages of all four edge families in a single VMEM pass:
+One compacted half-iteration (solvers/trws._phase_compact over the
+ops/checker.py layout) updates, for each direction d, two message families:
 
-  per direction d and pixel p (head of edge E(p, d), tail n = p + DIRS[d]):
-    variant B (p is the phase's source):  msg[i] = min_j H_B[j] + a TR(|Q_i - D0_j|)
-    variant A (n is the source):          msg[j] = min_i H_A[i] + a TR(|Q_i - D0_j|)
-  where H_B = gD(p) - M, H_A = gD(n) - M; the per-pixel checkerboard mask
-  picks the variant, the per-pixel minimum is subtracted, border edges are
-  zeroed, and the minima are emitted for the lower-bound accumulation.
+  variant B at the phase color's heads:  msg[i] = min_j HB[j] + a TR(Q_i - D0_j)
+  variant A at the other color's heads:  msg[j] = min_i HA[i] + a TR(Q_i - D0_j)
 
-Compared to calling ops/minplus per direction, this removes six pallas
-fusion barriers per phase and halves message write traffic (only the
-selected variant is stored).
+Both are one *send*: targets t with positions P_t, sources s with heights
+h_s = g_s - M_s and positions R_s,
+
+    msg[t] = min_s h_s + a * TR(P_t - R_s),   then msg -= min_t msg, * valid
+
+(TR is even, so operand order is immaterial).  The plain XLA version of
+variant A is K separate reductions, each re-reading the [K, Hc, W] source
+stack; this kernel loads every source row once per pixel block and keeps all
+K targets of the block in registers.
+
+Grid: (direction, pixel block).  The pixel axis is the flattened compact
+half-grid (Hc * W), cut into power-of-two blocks with a masked ragged tail;
+targets are held in KT-row tiles (KT a power of two, rows >= K masked); the
+walk over sources is a ``fori_loop``, so the program does not grow with K^2.
 """
 
 from __future__ import annotations
@@ -21,258 +28,123 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
 from stereo_tpu.energy import truncated_kernel
 
 
-def _kernel(tol_ref, gD_ref, gDs_ref, M_ref, Q_ref, D0_ref, alpha_ref,
-            srcmask_ref, valid_ref, newM_ref, vmin_ref, *, kernel: int,
-            K: int, KT: int = 8):
-    """All-direction phase messages, tile body.
-
-    The (i, j) label-pair table is walked j-outer / i-in-KT-blocks so the
-    live intermediates per step are [KT, th, tw] (one ``term`` block) rather
-    than [K, th, tw].  Measured at K=79 (v5e, 375x450, round 4): 28.2 vs
-    32.1 ms/sweep for the flat loop — ~12% from reduced spill pressure; the
-    kernel sits ~1.4x off the VPU flop roofline either way.  (NB: a
-    trws.solve *call* carries an eager fixed overhead that scales with K —
-    ~2.8 s at K=15, ~15 s at K=79, dominated by eager glue dispatches —
-    so per-sweep costs must be measured as marginals; jitted drivers like
-    _simultaneous_fusion_step do not pay it.)  min is exact (no rounding),
-    so the blocked reduction is bitwise-identical to the flat one.
-    """
-    tol = tol_ref[0]
-    D0 = D0_ref[...]  # [K, th, tw]
-    gD = gD_ref[...]
-    cdtype = gD.dtype  # compute dtype; messages may be stored narrower (bf16)
-    src_is_head = srcmask_ref[0]  # [th, tw]
-    blocks = [slice(i0, min(i0 + KT, K)) for i0 in range(0, K, KT)]
-    for d in range(4):
-        alpha = alpha_ref[d]
-        M = M_ref[d].astype(cdtype)
-        Q = Q_ref[d]
-        HB = gD - M  # [K, th, tw]
-        HA = gDs_ref[d] - M
-        accB = [None] * len(blocks)  # msgB[i-block] accumulates min over j
-        rowsA = []  # msgA[j]
-        for j in range(K):
-            rowA = None
-            for b, sl in enumerate(blocks):
-                term = alpha[None] * truncated_kernel(Q[sl] - D0[j][None],
-                                                      kernel, tol)
-                cB = HB[j][None] + term
-                accB[b] = cB if accB[b] is None else jnp.minimum(accB[b], cB)
-                pa = jnp.min(HA[sl] + term, axis=0)
-                rowA = pa if rowA is None else jnp.minimum(rowA, pa)
-            rowsA.append(rowA)
-        msgB = jnp.concatenate(accB, axis=0) if len(blocks) > 1 else accB[0]
-        msgA = jnp.stack(rowsA, axis=0)
-        msg = jnp.where(src_is_head[None], msgB, msgA)
-        vmin = jnp.min(msg, axis=0)
-        msg = (msg - vmin[None]) * valid_ref[d][None]
-        newM_ref[d] = msg.astype(newM_ref.dtype)
-        vmin_ref[d] = vmin
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
-def _kernel_compact(tol_ref, gD_ref, gDn_ref, Ms_ref, Mo_ref, Qs_ref, Qo_ref,
-                    D0s_ref, D0o_ref, as_ref, ao_ref, vs_ref, vo_ref,
-                    newMs_ref, newMo_ref, vmins_ref, vmino_ref, *,
-                    kernel: int, K: int):
-    """Checkerboard-compacted phase: each variant computed exactly once.
+def tile_sizes(K: int) -> tuple[int, int]:
+    """(KT, BP): target-tile rows and pixels per program.
 
-    s = the phase's source color, o = the other.  Variant B (head is the
-    source) runs on the s-compacted half-grid; variant A (tail is the
-    source) on the o-compacted half — no masked-out duplicate work, unlike
-    `_kernel` which evaluates both variants everywhere and selects."""
-    tol = tol_ref[0]
-    gD = gD_ref[...]  # [K, th, tw] beliefs at s-heads
-    D0s = D0s_ref[...]
-    D0o = D0o_ref[...]
-    cdtype = gD.dtype
-    # target-block size: live intermediates stay [KT, th, tw].  KT=16 was
-    # A/B'd on v5e (round 5, K=15 baby2 shapes): 0.225 -> 0.291 ms/call —
-    # WORSE here (unlike the banded sends' kt_for, where 16 won ~7%); the
-    # tile body's [KT, th, tw] blocks already fill the VPU at 8.
-    KT = 8
-    blocks = [slice(i0, min(i0 + KT, K)) for i0 in range(0, K, KT)]
-    for d in range(4):
-        # variant B at s-heads: msg[i] = min_j HB[j] + a*TR(Q_i - D0_j),
-        # computed one target block at a time (blocked min is bitwise the
-        # flat min; see _kernel)
-        HB = gD - Ms_ref[d].astype(cdtype)
-        Q = Qs_ref[d]
-        alpha = as_ref[d]
-        outB = []
-        for sl in blocks:
-            acc = None
-            for j in range(K):
-                term = alpha[None] * truncated_kernel(
-                    Q[sl] - D0s[j][None], kernel, tol)
-                contrib = HB[j][None] + term
-                acc = contrib if acc is None else jnp.minimum(acc, contrib)
-            outB.append(acc)
-        accB = jnp.concatenate(outB, axis=0) if len(blocks) > 1 else outB[0]
-        vminB = jnp.min(accB, axis=0)
-        newMs_ref[d] = ((accB - vminB[None])
-                        * vs_ref[d][None]).astype(newMs_ref.dtype)
-        vmins_ref[d] = vminB
-        # variant A at o-heads: msg[j] = min_i HA[i] + a*TR(Q_i - D0_j)
-        HA = gDn_ref[d] - Mo_ref[d].astype(cdtype)
-        Q = Qo_ref[d]
-        alpha = ao_ref[d]
-        outA = []
-        for sl in blocks:
-            acc = None
-            for i in range(K):
-                term = alpha[None] * truncated_kernel(
-                    Q[i][None] - D0o[sl], kernel, tol)
-                contrib = HA[i][None] + term
-                acc = contrib if acc is None else jnp.minimum(acc, contrib)
-            outA.append(acc)
-        msgA = jnp.concatenate(outA, axis=0) if len(blocks) > 1 else outA[0]
-        vminA = jnp.min(msgA, axis=0)
-        newMo_ref[d] = ((msgA - vminA[None])
-                        * vo_ref[d][None]).astype(newMo_ref.dtype)
-        vmino_ref[d] = vminA
+    The block holds ceil(K/KT)*KT targets x BP pixels twice (accumulators and
+    target positions); BP shrinks with K to keep that near 8K floats, i.e.
+    about 64 registers a thread at 4 warps."""
+    KT = min(16, _next_pow2(K))
+    rows = -(-K // KT) * KT
+    BP = max(32, min(256, _next_pow2(4096 // rows + 1) // 2))
+    return KT, BP
 
 
-def compact_tile_width(K: int, W: int, th: int = 8) -> int | None:
-    """Admissible tile width for the compact kernel, or None if no tile
-    fits the VMEM budget (large K — trws.solve then uses the standard
-    kernel, which carries 2*(18K+13) tile planes and fits to K ~ 95).
+def _send_kernel(tol_ref, g_ref, m_ref, tpos_ref, spos_ref, a_ref, v_ref,
+                 out_ref, vmin_ref, *, kernel: int, K: int, N: int, KT: int,
+                 BP: int, g_dir: bool, t_dir: bool, s_dir: bool):
+    d = pl.program_id(0)
+    p0 = pl.program_id(1) * BP
+    pm = p0 + jnp.arange(BP) < N
+    cdt = g_ref.dtype
+    inf = jnp.asarray(jnp.inf, cdt)
+    tol = plgpu.load(tol_ref.at[0])
 
-    VMEM: 31K+24 in/out tile planes (in_specs: 3 K-plane k3 + 5 4K-plane k4
-    + 4*4 aux p3; out_specs: 2 k4 + 2 p3), double-buffered by the Mosaic
-    pipeline.  Cap at 13.5 MiB under the 16 MB scoped limit — calibrated by
-    measurement: K=15, th=8, tw=512 (16.03 MB by this count) allocates
-    16.28 MB and is rejected by Mosaic, while every config admitted by the
-    round-3 nominal budget (true size <= 13.6 MB) compiled and ran.
-    """
-    planes = 2 * (31 * K + 24)
-    cands = [tw for tw in (512, 384, 256, 128)
-             if planes * th * tw * 4 <= 13.5 * 1024 * 1024]
-    if not cands:
-        return None
-    return min(cands, key=lambda t: (-(-W // t) * t, -t))
+    def lead(per_dir):
+        return (d,) if per_dir else ()
+
+    alpha = plgpu.load(a_ref.at[d, pl.ds(p0, BP)], mask=pm, other=0.0)
+    # target tiles start at traced offsets: static slice starts are
+    # bounds-checked, and the last tile runs past K (masked rows)
+    blocks = []
+    for t0 in range(0, K, KT):
+        rm = t0 + jnp.arange(KT) < K
+        tp = plgpu.load(
+            tpos_ref.at[(*lead(t_dir), pl.ds(jnp.int32(t0), KT),
+                         pl.ds(p0, BP))],
+            mask=rm[:, None] & pm[None, :], other=0.0)
+        blocks.append((rm, tp))
+
+    def body(s, accs):
+        g = plgpu.load(g_ref.at[(*lead(g_dir), s, pl.ds(p0, BP))],
+                       mask=pm, other=0.0)
+        m = plgpu.load(m_ref.at[d, s, pl.ds(p0, BP)], mask=pm, other=0.0)
+        r = plgpu.load(spos_ref.at[(*lead(s_dir), s,
+                                    pl.ds(p0, BP))], mask=pm, other=0.0)
+        h = g - m.astype(cdt)
+        return tuple(
+            jnp.minimum(acc, h[None, :] + alpha[None, :]
+                        * truncated_kernel(tp - r[None, :], kernel, tol))
+            for acc, (_, tp) in zip(accs, blocks))
+
+    accs = lax.fori_loop(
+        0, K, body, tuple(jnp.full((KT, BP), inf, cdt) for _ in blocks))
+    vmin = None
+    for acc, (rm, _) in zip(accs, blocks):
+        bm = jnp.min(jnp.where(rm[:, None], acc, inf), axis=0)
+        vmin = bm if vmin is None else jnp.minimum(vmin, bm)
+    valid = plgpu.load(v_ref.at[d, pl.ds(p0, BP)], mask=pm, other=0.0)
+    for t0, (acc, (rm, _)) in zip(range(0, K, KT), zip(accs, blocks)):
+        msg = (acc - vmin[None, :]) * valid[None, :]
+        plgpu.store(out_ref.at[d, pl.ds(jnp.int32(t0), KT), pl.ds(p0, BP)],
+                    msg.astype(out_ref.dtype),
+                    mask=rm[:, None] & pm[None, :])
+    plgpu.store(vmin_ref.at[d, pl.ds(p0, BP)], vmin, mask=pm)
 
 
-@functools.partial(jax.jit, static_argnames=("kernel", "th", "interpret"))
-def phase_messages_compact_pallas(gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o,
-                                  a_s, a_o, valid_s, valid_o, tol,
-                                  kernel: int, th: int = 8,
-                                  interpret: bool = False):
-    """Fused compacted phase (see ops/checker.py for the layout).
+@functools.partial(jax.jit, static_argnames=("kernel", "interpret"))
+def send4(g, M, tpos, spos, alpha, valid, tol, kernel: int,
+          interpret: bool = False):
+    """Four directions' sends in one Pallas call.
+
+    M: [4, K, Hc, W] (storage dtype); g, tpos, spos: [4, K, Hc, W] or a
+    direction-shared [K, Hc, W]; alpha, valid: [4, Hc, W].  Returns
+    (msg [4, K, Hc, W] in M's dtype, min-normalized and masked by valid,
+    vmin [4, Hc, W] in g's dtype)."""
+    _, K, Hc, W = M.shape
+    N = Hc * W
+    KT, BP = tile_sizes(K)
+    flat = lambda a: a.reshape(a.shape[:-2] + (N,))  # noqa: E731
+    args = (jnp.asarray(tol, g.dtype).reshape(1),) + tuple(
+        map(flat, (g, M, tpos, spos, alpha, valid)))
+    body = functools.partial(
+        _send_kernel, kernel=kernel, K=K, N=N, KT=KT, BP=BP,
+        g_dir=g.ndim == 4, t_dir=tpos.ndim == 4, s_dir=spos.ndim == 4)
+    msg, vmin = pl.pallas_call(
+        body,
+        grid=(4, pl.cdiv(N, BP)),
+        out_shape=[jax.ShapeDtypeStruct((4, K, N), M.dtype),
+                   jax.ShapeDtypeStruct((4, N), g.dtype)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
+        interpret=interpret,
+        name="trws_phase_send",
+    )(*args)
+    return msg.reshape(4, K, Hc, W), vmin.reshape(4, Hc, W)
+
+
+def phase_messages_compact(gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o, a_s,
+                           a_o, valid_s, valid_o, tol, kernel: int,
+                           interpret: bool = False):
+    """Compacted phase (ops/checker.py layout): variant B on the source
+    color's half-grid, variant A on the other's.
 
     gD_s, D0_*: [K, Hc, W]; gDn (tail beliefs at o-heads), M_*, Q_*:
     [4, K, Hc, W]; a_*, valid_*: [4, Hc, W].  Returns
     (newM_s, newM_o, vmin_s, vmin_o)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    K, Hc, W = gD_s.shape
-    tw = compact_tile_width(K, W, th)
-    if tw is None:
-        raise ValueError(
-            f"compact phase kernel: no tile fits VMEM at K={K} "
-            f"(trws.solve auto-disables compact in this regime)")
-    pad_h = (-Hc) % th
-    pad_w = (-W) % tw
-    if pad_h or pad_w:
-        pr = lambda a: jnp.pad(
-            a, [(0, 0)] * (a.ndim - 2) + [(0, pad_h), (0, pad_w)])
-        (gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o, a_s, a_o, valid_s,
-         valid_o) = map(pr, (gD_s, gDn, M_s, M_o, Q_s, Q_o, D0_s, D0_o,
-                             a_s, a_o, valid_s, valid_o))
-    Hp, Wp = Hc + pad_h, W + pad_w
-
-    grid = (Hp // th, Wp // tw)
-    k3 = pl.BlockSpec((K, th, tw), lambda h, w: (0, h, w),
-                      memory_space=pltpu.VMEM)
-    k4 = pl.BlockSpec((4, K, th, tw), lambda h, w: (0, 0, h, w),
-                      memory_space=pltpu.VMEM)
-    p3 = pl.BlockSpec((4, th, tw), lambda h, w: (0, h, w),
-                      memory_space=pltpu.VMEM)
-    sm = pl.BlockSpec(memory_space=pltpu.SMEM)
-
-    newMs, newMo, vmins, vmino = pl.pallas_call(
-        functools.partial(_kernel_compact, kernel=kernel, K=K),
-        grid=grid,
-        interpret=interpret,
-        in_specs=[sm, k3, k4, k4, k4, k4, k4, k3, k3, p3, p3, p3, p3],
-        out_specs=[k4, k4, p3, p3],
-        out_shape=[
-            jax.ShapeDtypeStruct((4, K, Hp, Wp), M_s.dtype),
-            jax.ShapeDtypeStruct((4, K, Hp, Wp), M_o.dtype),
-            jax.ShapeDtypeStruct((4, Hp, Wp), gD_s.dtype),
-            jax.ShapeDtypeStruct((4, Hp, Wp), gD_s.dtype),
-        ],
-    )(jnp.asarray(tol, gD_s.dtype).reshape(1), gD_s, gDn, M_s, M_o, Q_s,
-      Q_o, D0_s, D0_o, a_s, a_o, valid_s, valid_o)
-    if pad_h or pad_w:
-        newMs = newMs[..., :Hc, :W]
-        newMo = newMo[..., :Hc, :W]
-        vmins = vmins[..., :Hc, :W]
-        vmino = vmino[..., :Hc, :W]
+    newMs, vmins = send4(gD_s, M_s, Q_s, D0_s, a_s, valid_s, tol, kernel,
+                         interpret=interpret)
+    newMo, vmino = send4(gDn, M_o, D0_o, Q_o, a_o, valid_o, tol, kernel,
+                         interpret=interpret)
     return newMs, newMo, vmins, vmino
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("kernel", "th", "interpret"))
-def phase_messages_pallas(gD, gD_shifted, M, Q, D0, alphas, src_is_head,
-                          valid, tol, kernel: int, th: int = 8,
-                          interpret: bool = False):
-    """All-direction fused phase messages.
-
-    gD, D0: [K, H, W]; gD_shifted, M, Q: [4, K, H, W];
-    alphas, valid: [4, H, W]; src_is_head: [H, W] (1.0 where the head pixel
-    is this phase's source).  Returns (newM [4, K, H, W], vmins [4, H, W]).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    K, H, W = gD.shape
-    # VMEM budget: ~19K tile planes live; cap plane elements accordingly.
-    # Among the admissible widths pick the one minimizing the padded total
-    # width (e.g. W=370: tw=512 pads to 512 but tw=384 pads to 384 — a
-    # straight 25% compute/traffic cut), tie-broken toward wider tiles.
-    cands = [tw for tw in (512, 384, 256, 128)
-             if 19 * K * th * tw * 4 <= 10 * 1024 * 1024]
-    if not cands:
-        cands = [128]
-    tw = min(cands, key=lambda t: (-(-W // t) * t, -t))
-    pad_h = (-H) % th
-    pad_w = (-W) % tw
-    if pad_h or pad_w:
-        pr = lambda a: jnp.pad(a, [(0, 0)] * (a.ndim - 2) + [(0, pad_h), (0, pad_w)])
-        gD, gD_shifted, M, Q, D0, alphas, valid = map(
-            pr, (gD, gD_shifted, M, Q, D0, alphas, valid))
-        src_is_head = jnp.pad(src_is_head, [(0, pad_h), (0, pad_w)])
-    Hp, Wp = H + pad_h, W + pad_w
-
-    grid = (Hp // th, Wp // tw)
-    k3 = pl.BlockSpec((K, th, tw), lambda h, w: (0, h, w),
-                      memory_space=pltpu.VMEM)
-    k4 = pl.BlockSpec((4, K, th, tw), lambda h, w: (0, 0, h, w),
-                      memory_space=pltpu.VMEM)
-    p3 = pl.BlockSpec((4, th, tw), lambda h, w: (0, h, w),
-                      memory_space=pltpu.VMEM)
-    p1 = pl.BlockSpec((1, th, tw), lambda h, w: (0, h, w),
-                      memory_space=pltpu.VMEM)
-    sm = pl.BlockSpec(memory_space=pltpu.SMEM)
-
-    newM, vmins = pl.pallas_call(
-        functools.partial(_kernel, kernel=kernel, K=K),
-        grid=grid,
-        interpret=interpret,
-        in_specs=[sm, k3, k4, k4, k4, k3, p3, p1, p3],
-        out_specs=[k4, p3],
-        out_shape=[
-            jax.ShapeDtypeStruct((4, K, Hp, Wp), M.dtype),  # message storage
-            jax.ShapeDtypeStruct((4, Hp, Wp), gD.dtype),
-        ],
-    )(jnp.asarray(tol, gD.dtype).reshape(1), gD, gD_shifted, M, Q, D0,
-      alphas, src_is_head[None].astype(gD.dtype), valid)
-    if pad_h or pad_w:
-        newM = newM[..., :H, :W]
-        vmins = vmins[..., :H, :W]
-    return newM, vmins

@@ -2,7 +2,7 @@
 
 The reference's flagship move generator is the QPBO binary fusion
 (rd.m:3-21, cpp/rd_mex.cpp:55-100, dispmap_super.m:61-84) — a serial
-pointer-machine maxflow.  The TPU solver (solvers/binary.py) replaced it
+pointer-machine maxflow.  The device solver (solvers/binary.py) replaced it
 with a K=2 checkerboard TRW-S + per-component acceptance built entirely from
 elementwise ops, static shifts, segmented associative scans, a stable sort,
 and unique-index scatters.  That closure is what makes distribution *free of
@@ -11,7 +11,7 @@ NamedSharding that splits image columns over the mesh's 'x' axis and XLA's
 SPMD partitioner derives the program —
 
 - the K=2 message phases and the decode partition like the multi-label
-  solver (shifts -> CollectivePermute halo exchange over ICI);
+  solver (shifts -> CollectivePermute halo exchange, NCCL between GPUs);
 - the connected-component flood's shift-doubling segmented scans become
   log2(W) strided permutes, so components *crossing shard boundaries are
   merged by construction* — each doubling round extends min-id propagation

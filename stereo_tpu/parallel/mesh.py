@@ -7,13 +7,15 @@ is *spatial partitioning* of the pixel grid (the sequence-parallel analog) plus
 - a 2-D mesh ('batch', 'x'): stereo pairs over 'batch', image columns over 'x';
 - fields are annotated with NamedSharding; every solver op is either
   elementwise, a static shift (jnp.roll -> XLA CollectivePermute of the 1-px
-  halo over ICI), a windowed reduction (halo exchange likewise), or a full
+  halo, an NCCL send/receive between GPUs), a windowed reduction (halo exchange likewise), or a full
   reduction (psum tree) — so XLA's SPMD partitioner derives exactly the
   halo-exchange program the survey's plan calls for, and the result is
   *bitwise identical* to the single-device program (same fixed point, same
   iteration count).
 - multi-host: the same annotations over a jax.distributed-initialized global
-  mesh; ICI inside a slice, DCN across hosts, handled by XLA.
+  mesh; NCCL over NVLink inside a host and over the network across hosts.
+  Every GPU reaches every other at the same rate, so the mesh follows the
+  algorithm alone.
 
 Convergence semantics are unchanged because the checkerboard TRW-S phases are
 data-parallel by construction (no cross-pixel sequential dependency inside a
@@ -83,11 +85,13 @@ def sharded_solve(
     Batched inputs (leading stereo-pair axis) are vmapped over 'batch'.
     ``messages`` warm-starts the dual state (e.g. carried across pooled
     chunks); ``check_every`` amortizes the decode.  ``compact`` runs the
-    checkerboard-compacted sweeps (ops/checker.py) — pure-XLA rolls/selects,
-    so the SPMD partitioner shards it exactly like the standard path (the
-    compaction is along H, the sharded axis is W) at ~half the sweep
-    compute; sharded-vs-single-device stays bitwise *for matching compact
-    settings*.  Returns a TRWSResult with device-sharded members.
+    checkerboard-compacted sweeps (ops/checker.py); its rolls/selects shard
+    like the standard path (the compaction is along H, the sharded axis is
+    W).  On GPUs its message update is the Triton kernel, which has no SPMD
+    partitioning rule of its own: XLA partitions around the call, and the
+    result still matches the single-device labels.  Sharded-vs-single-device
+    stays bitwise *for matching compact settings*.  Returns a TRWSResult with
+    device-sharded members.
     """
     batched = unary.ndim == 4
     specs = field_specs(batched)
@@ -111,14 +115,10 @@ def sharded_solve(
         messages = put(messages, msg_spec)
 
     def single(u, d0, q, al, msg):
-        # use_pallas=False: the fused phase kernel is a pallas_call with no
-        # SPMD partitioning rule, so under a >1-device mesh XLA would either
-        # error or silently replicate the sharded operands.  The pure-XLA path
-        # partitions cleanly (shifts -> CollectivePermute halo exchange).
         return trws.solve(u, d0, q, al, kernel=kernel, tol=tol,
                           maxiter=maxiter, max_relgap=max_relgap,
                           messages=msg, check_every=check_every,
-                          use_pallas=False, compact=compact)
+                          compact=compact)
 
     base = jax.vmap(single) if batched else single
     if messages is None:

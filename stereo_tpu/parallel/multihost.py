@@ -2,8 +2,9 @@
 
 Same sharding annotations as parallel/mesh.py, but over a
 jax.distributed-initialized global mesh: each process contributes its local
-devices, the pixel grid's 'x' axis spans processes (halo exchanges ride ICI
-within a host and DCN across hosts), and inputs are materialized per-process
+devices, the pixel grid's 'x' axis spans processes (halo exchanges are
+NCCL collectives: NVLink within a host, the network across hosts), and
+inputs are materialized per-process
 with jax.make_array_from_callback so no host ever holds remote shards.
 
 Validated by tests/multihost/run_pair.py: two CPU processes (4 virtual
@@ -90,8 +91,8 @@ def sharded_banded_global(unary, positions, nbr_positions, alphas, *, kernel,
                           tol, Bh, Bw, sweeps, decode_every=None):
     """banded_dist.sharded_banded_run over ALL processes' devices.
 
-    gy stripes span processes: the per-step seam-slab ppermutes ride ICI
-    within a host and DCN across hosts.  Inputs are host numpy arrays
+    gy stripes span processes: the per-step seam-slab ppermutes ride NVLink
+    within a host and the network across hosts.  Inputs are host numpy arrays
     replicated on every process; rows are pre-padded host-side so the
     solver's internal padding is a no-op on global arrays.  Labels are
     allgathered so every process can read the full field.

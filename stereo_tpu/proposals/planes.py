@@ -14,6 +14,9 @@ import jax.numpy as jnp
 
 from stereo_tpu import geometry
 
+# float32 products stay float32 on GPUs too (no TF32 rounding)
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def fronto_parallel_ladder(H: int, W: int, disparities, dtype=jnp.float32):
     """One constant-disparity proposal per value. Returns [N, 4, H, W]."""
@@ -44,8 +47,8 @@ def fit_plane_to_points(xs, ys, disps, mask, *, l1: bool, irls_iters: int = 20):
     def smallest_sv(mat):
         # smallest right singular vector via the 3x3 gram matrix — equivalent
         # to the reference's svd(...,'econ') V(:,end) (dispmap_ncc.m:81-82)
-        # but O(N) instead of an [N,3] SVD, and TPU-friendly
-        gram = mat.T @ mat
+        # but O(N) instead of an [N,3] SVD
+        gram = jnp.matmul(mat.T, mat, precision=HIGHEST)
         _, vecs = jnp.linalg.eigh(gram)
         return vecs[:, 0]  # eigh returns ascending eigenvalues
 
@@ -56,10 +59,10 @@ def fit_plane_to_points(xs, ys, disps, mask, *, l1: bool, irls_iters: int = 20):
         v = None
         for _ in range(max(irls_iters, 1)):
             v = smallest_sv(w[:, None] * cost)
-            w = jnp.sqrt(jnp.abs(cost @ v))
+            w = jnp.sqrt(jnp.abs(jnp.matmul(cost, v, precision=HIGHEST)))
     else:
         v = smallest_sv(cost)
 
-    d = -jnp.dot(v, c)
+    d = -jnp.dot(v, c, precision=HIGHEST)
     p = jnp.concatenate([v, d[None]])
     return p / p[2]

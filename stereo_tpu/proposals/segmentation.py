@@ -61,7 +61,8 @@ def rgb_to_luv(im: jax.Array) -> jax.Array:
     fires for pure black where L = 0 makes u* = v* = 0 either way.
     """
     rgb = im / 255.0
-    xyz = jnp.einsum("hwc,dc->hwd", rgb, jnp.asarray(_RGB2XYZ, im.dtype))
+    xyz = jnp.einsum("hwc,dc->hwd", rgb, jnp.asarray(_RGB2XYZ, im.dtype),
+                     precision=jax.lax.Precision.HIGHEST)
     X, Y, Z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     y_ratio = Y / _YN
     L = jnp.where(
@@ -235,12 +236,20 @@ def mean_shift(im_rgb, h_s: int, h_r: float, min_region: int,
     luv = rgb_to_luv(im)
     modes = np.asarray(mean_shift_filter(luv, int(h_s), float(h_r),
                                          max_iters), dtype=np.float32)
+    return connect_modes(modes, h_r, min_region)
+
+
+def connect_modes(modes: np.ndarray, h_r: float,
+                  min_region: int) -> np.ndarray:
+    """The merge stage on filtered [H, W, 3] LUV modes (native union-find:
+    mode connection, transitive closure, small-region pruning) -> uint32
+    labels [H, W], 1-based."""
+    modes = np.ascontiguousarray(modes, dtype=np.float32)
     H, W, _ = modes.shape
     labels = np.zeros((H, W), dtype=np.uint32)
     L = native.lib()
     L.connect_modes(
-        np.ascontiguousarray(modes).ctypes.data_as(
-            ctypes.POINTER(ctypes.c_float)),
+        modes.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         H, W, ctypes.c_float(float(h_r)), int(min_region),
         labels.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
     )

@@ -1,6 +1,6 @@
 """New-view-synthesis toolbox (the reference's imrender/ojw renderers).
 
-TPU-native equivalents of the bundled IBR pipeline:
+Array-program equivalents of the bundled IBR pipeline:
 
 - :mod:`stereo_tpu.render.genview`   — output-view projection matrices
   (ojw_genview.m, P2stereoP.m, P_interp.m);

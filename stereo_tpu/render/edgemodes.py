@@ -13,7 +13,7 @@ Pipeline (reference: imrender/ojw/ibr_edgemodes.m):
      lambda = 0 (slice_cell_image's no-labelling branch);
   5. assemble the rendered image from the selected modes.
 
-TPU shape: the reference loops column-by-column with cell arrays of
+Array shape: the reference loops column-by-column with cell arrays of
 variable-size mode sets; here every stage is one dense device program over
 [H, W] with a fixed per-pixel mode capacity `max_modes` (+BIG unary padding),
 which is also what the table solver needs.  The reference's 8-connect option

@@ -10,8 +10,8 @@ sample position v (= one (input image, depth) pair):
 Its inner skip tests (truncquad_edges.cxx:136-177: drop v when
 min_a d1[v,a] >= thresh; drop (v,b) when d2[v,b] >= thresh - min_a d1[v,a])
 are pure pruning — every skipped candidate satisfies d1 + d2 >= thresh, so
-the dense min-plus above is exactly equivalent.  On TPU the whole image's
-edges evaluate as one batched tensor program.
+the dense min-plus above is exactly equivalent.  The whole image's edges
+evaluate as one batched tensor program.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Truncated-quadratic colour modes (truncquad_modes.cxx) — TPU-native.
+"""Truncated-quadratic colour modes (truncquad_modes.cxx) as array programs.
 
 The reference (imrender/ojw/truncquad_modes.cxx) finds, per pixel, the colour
 modes of a library of L sampled colours at each of M depths: every pair of
@@ -8,7 +8,7 @@ by converged energy and kept only if no nearby depth (within search_width)
 gives the centre a lower energy.  The C code is a per-pixel sequential loop
 with data-dependent cluster counts.
 
-TPU redesign: all L(L-1)/2 pair seeds at all M depths iterate mean-shift *in
+Redesign: all L(L-1)/2 pair seeds at all M depths iterate mean-shift *in
 parallel* as one dense program (masked fixed-point iteration), dedupe and the
 depth-mode test are dense comparisons, and the variable-length output becomes
 a fixed-capacity top-`max_modes` selection per pixel (energy-ascending, +inf

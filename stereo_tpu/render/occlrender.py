@@ -11,7 +11,7 @@ nearer projected point selects the occluding surface (ibr_occlrender.m:
 174-185).  Optional texture regularization multiplies the smoothness terms
 by truncated-quadratic dictionary costs (truncquad_edges).
 
-TPU-native split: projection, colour sampling, occlusion detection, means
+Device/host split: projection, colour sampling, occlusion detection, means
 and SSD costs are dense device programs over the [2, H, W] candidate-surface
 stack (ops/interp, ops/interactions); clique assembly is vectorized
 host-side classification by occluder count (the gen_cliques switch);

@@ -1,10 +1,9 @@
-"""Banded (2-D blocked) wavefront TRW-S: short exact sweeps on TPU.
+"""Banded (2-D blocked) wavefront TRW-S: short exact sweeps on the device.
 
 The raster-order wavefront (solvers/wavefront.py) executes the reference's
 sequential TRW-S (cpp/trw-s/minimize.cpp:31-116) in T = H + W - 1 anti-diagonal
-steps per pass; on TPU each step carries a fixed launch/DMA/scalar overhead
-(~40 us on v5e) that dominates the sweep wall-clock at small diagonal widths
-(ROADMAP.md "Wavefront kernel: measured findings").
+steps per pass; each step carries a fixed launch overhead that dominates the
+sweep wall-clock at small diagonal widths.
 
 This module shortens the critical path by changing the *node ordering*, not
 the algorithm: partition the grid into Bh x Bw blocks and order nodes by
@@ -44,9 +43,6 @@ nb = Gy*Gx), so within-block vertical neighbors are +-nb lanes and whole
 yb-groups are contiguous.  Sx* seam arrays share that lane layout (their
 nodes have fixed xb); Sy* arrays use lane2 = xb * nb + b.  All seam access
 is masked group-compare + lane rolls — no gathers.
-
-The fused Pallas kernel for one sweep lives in ops/banded_kernel.py; this
-file is the exact scan-path oracle for it and the CPU fallback.
 """
 
 from __future__ import annotations
@@ -676,17 +672,6 @@ def _decode_state(bp: _BandedProblem, state):
     return labels, E
 
 
-def _make_sweep_fn(bp: _BandedProblem, use_pallas):
-    if use_pallas:
-        try:
-            from stereo_tpu.ops import banded_kernel as bk
-
-            return bk.make_sweep(bp)
-        except ImportError:
-            pass
-    return lambda state: _sweep_scan(bp, state)
-
-
 def solve_banded(
     unary: jax.Array,  # [K, H, W]
     positions: jax.Array,  # D0 [K, H, W]
@@ -701,7 +686,6 @@ def solve_banded(
     max_relgap: float = 1e-4,
     messages: jax.Array | None = None,  # [4, K, H, W] warm start
     check_every: int = 1,
-    use_pallas: bool | None = None,
 ) -> TRWSResult:
     """Banded-order TRW-S; drop-in for trws.solve / wavefront.solve_wavefront.
 
@@ -717,9 +701,8 @@ def solve_banded(
                         kernel, tol)
     acc_t = _acc_t(bp)
 
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    sweep_fn = _make_sweep_fn(bp, use_pallas)
+    def sweep_fn(state):
+        return _sweep_scan(bp, state)
 
     if messages is None:
         messages = jnp.zeros((4, K, H, W), dtype)
@@ -755,10 +738,9 @@ class BandedRun:
     """Prepared banded solver: pack the problem once, sweep in jitted chunks.
 
     solve_banded re-skews/re-packs the problem inside every call — fine for
-    one solve, wasteful for chunked driving (each 100-sweep chunk of the
-    baby2 race spent ~0.9 s repacking vs ~0.4 s sweeping).  BandedRun hoists
-    _BandedProblem + the kernel slabs out of the hot path; `run(state, n)`
-    compiles once per distinct n and then costs n sweeps + one decode.
+    one solve, wasteful for chunked driving.  BandedRun hoists
+    _BandedProblem out of the hot path; `run(state, n)` compiles once per
+    distinct n and then costs n sweeps + one decode.
 
     Usage:
         r = BandedRun(unary, D0, Q, alphas, kernel=1, tol=2.0, Bh=64, Bw=64)
@@ -768,7 +750,7 @@ class BandedRun:
     """
 
     def __init__(self, unary, positions, nbr_positions, alphas, *, kernel,
-                 tol, Bh, Bw, use_pallas=None, decode: str = "banded"):
+                 tol, Bh, Bw, decode: str = "banded"):
         K, H, W = unary.shape
         self.spec = BandedSpec(H, W, Bh, Bw)
         self.bp = _BandedProblem(unary, positions, nbr_positions, alphas,
@@ -789,29 +771,9 @@ class BandedRun:
         self.decode = decode
         self._inputs = (unary, positions, nbr_positions, alphas)
         self._sk = None
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        self._use_pallas = use_pallas
-        self._packed = None
-        if use_pallas:
-            try:
-                from stereo_tpu.ops import banded_kernel as bk
-
-                if (self.spec.T >= 4
-                        and bk.vmem_estimate(K, self.spec) <= 14 * 2 ** 20):
-                    self._packed = (bk.pack_problem(self.bp),
-                                    bk.pack_seam(self.bp))
-            except ImportError:
-                pass
         self._chunk_cache = {}
         self.K, self.H, self.W = K, H, W
         self.dtype = unary.dtype
-
-    @property
-    def uses_fused_kernel(self) -> bool:
-        """True when sweeps run the fully-fused Pallas kernel (VMEM gate
-        passed); False = the (exact) per-step scan path."""
-        return self._packed is not None
 
     def init_state(self, messages=None):
         if messages is None:
@@ -835,16 +797,11 @@ class BandedRun:
             n_seg = sweeps // decode_every
             W = self.W
 
-            def chunk(tree, packed, sk_tree, state):
+            def chunk(tree, sk_tree, state):
                 bp = self.bp.with_tree(tree)
-                if packed is not None:
-                    from stereo_tpu.ops import banded_kernel as bk
 
-                    prob, sp = packed
-                    sweep = lambda s: bk.sweep_state(spec, K, kernel, tol,
-                                                     prob, sp, s)
-                else:
-                    sweep = lambda s: _sweep_scan(bp, s)
+                def sweep(s):
+                    return _sweep_scan(bp, s)
 
                 def decode_fn(state):
                     if sk_tree is None:
@@ -872,7 +829,7 @@ class BandedRun:
                     segment, (state, big, lab0), jnp.arange(n_seg))
                 return state, bestE, lbs[-1], bestL
 
-            fn = jax.jit(chunk, donate_argnums=3)
+            fn = jax.jit(chunk, donate_argnums=2)
             self._chunk_cache[key] = fn
         sk_tree = None
         if self.decode == "raster":
@@ -882,7 +839,7 @@ class BandedRun:
                 self._sk = wf._Skewed(*self._inputs, self.bp.kernel,
                                       self.bp.tol)
             sk_tree = self._sk.tree()
-        return fn(self.bp.tree(), self._packed, sk_tree, state)
+        return fn(self.bp.tree(), sk_tree, state)
 
     def messages(self, state):
         return state_to_messages(state, self.bp)

@@ -17,15 +17,9 @@ the *local* banded problem on its stripe; the only cross-device coupling is
 exactly the shard_map + per-step ppermute design of ROADMAP "Still open" #1
 (reference chain mixing to match at scale: cpp/trw-s/minimize.cpp:36-95).
 
-The stripes sweep via the scan path, not the fully-fused kernel (Mosaic
-kernels cannot host collectives).  This penalty is MEASURED, not assumed:
-a per-stripe fused kernel split at step granularity — seam slabs staged
-through HBM between launches — is, minus the ppermute, exactly what the
-K=79 scan path with the fused one-variant send kernel executes, and that
-runs 129 ms/sweep vs the fully-fused kernel's 62.8 (2.05x staging
-penalty).  A split fused kernel therefore cannot beat the scan path this
-module already runs; revisit only if in-kernel collectives become
-available or stripe-local sweep time dominates ICI on real multi-chip.
+Each stripe sweeps via the scan path (one device program per step, the
+seam slabs exchanged by ppermute between steps); a persistent whole-sweep
+kernel would need the exchange inside the kernel.
 
 Exactness: the stripe-local computation is the same per-node arithmetic in
 the same order as the single-device solver — _BandedProblem built with

@@ -5,7 +5,7 @@ The reference solves each binary fusion with QPBO roof duality
 unlabelled, so a fusion never increases the energy (property P2,
 imrender/vgg/vgg_qpbo.m:14-17).
 
-TPU-native design: a fusion move is a 2-label MRF whose pairwise terms are in
+Design: a fusion move is a 2-label MRF whose pairwise terms are in
 the *same* truncated-distance family as the multi-label problem —
 V(a, b) = w * min(|d_a(tail @ head) - d_b(head @ head)|^k, tol)
 (all_pairwise_costs, dispmap_super.m:236-262) — so checkerboard TRW-S doubles
@@ -18,8 +18,8 @@ message has one degree of freedom, so each directed-edge buffer is a single
 signed plane ``md`` with (msg0, msg1) = (relu(-md), relu(md)); the 2x2
 pairwise tables are precomputed once per move as 16 [H, W] planes.  Every
 phase is then a short chain of elementwise min/add ops on [H, W] planes that
-XLA fuses into a handful of HBM passes — no K loop, no Pallas needed, and
-half the message bandwidth.  The math is the exact checkerboard TRW-S of
+XLA fuses into a handful of memory passes — no K loop, no kernel needed,
+and half the message bandwidth.  The math is the exact checkerboard TRW-S of
 solvers/trws.py (same ordering, same gammas, same stopping rule).
 
 Move acceptance — the per-pixel persistency analog (rd_mex.cpp:68-92): QPBO
@@ -252,9 +252,9 @@ def connected_components(z: jax.Array) -> jax.Array:
 
     Returns [H, W] int32: for z pixels, the smallest flat pixel index in the
     component; H*W elsewhere.  Each round floods the current min id along
-    entire rows and columns via segmented scans (pure VPU work — gathers and
-    scatters serialize on TPU, so the classic pointer-jumping formulation is
-    avoided); converges in O(#bends of the windiest component) rounds, which
+    entire rows and columns via segmented scans (elementwise work, no gathers
+    or scatters, instead of the classic pointer-jumping formulation);
+    converges in O(#bends of the windiest component) rounds, which
     is 1-3 for real fusion take-masks.
     """
     H, W = z.shape
@@ -295,15 +295,15 @@ def connected_components(z: jax.Array) -> jax.Array:
 def _segment_verdicts_sorted(comp_flat, delta_flat, acc_t):
     """Per-pixel verdict (segment sum <= 0) via sort + segmented scans.
 
-    The scatter-add segment sum serializes per element on TPU (~2.8 ms at
-    baby2 scale); this path uses only compare-exchange sorts, associative
-    scans, and one unique-index permutation scatter:
+    Sums in a fixed association order, unlike a scatter-add (atomics in no
+    fixed order on a GPU), so verdicts are reproducible and sharded ==
+    single-device bitwise (parallel/fusion_dist.py):
 
-      1. sort (comp, delta, iota) by comp          (bitonic, pure VPU)
+      1. sort (comp, delta, iota) by comp
       2. within-segment prefix sums via a segmented associative scan
       3. broadcast each segment's total backward (reverse segmented max)
       4. scatter the per-element verdicts back through the sort permutation
-         (unique indices — no collision serialization)
+         (unique indices — no collisions)
     """
     N = comp_flat.shape[0]
     idx = jnp.arange(N, dtype=jnp.int32)
@@ -341,23 +341,21 @@ def accept_components(z, theta0, theta1, V, method: str | None = None):
     no edge, so the deltas are independent.  Returns (take, n_components
     accepted implicitly via the mask).
 
-    ``method``: 'scatter' (one scatter-add segment sum + verdict gather) or
-    'sort' (bitonic sort + segmented scans + one permutation scatter —
-    no colliding scatters; see _segment_verdicts_sorted).  Default: 'sort'
-    on TPU (measured round 4 at 375x450, amortized: 3.19 vs 3.59 ms per
-    acceptance incl. the shared flood, exact parity), 'scatter' elsewhere
-    (the bitonic network is slow to compile/run on CPU).
+    ``method``: 'sort' (sort + segmented scans + one permutation scatter,
+    fixed summation order; see _segment_verdicts_sorted) or 'scatter' (one
+    scatter-add segment sum + verdict gather, whose float atomics on a GPU
+    add in no fixed order).  'sort' is the default: measured on an H100 in
+    the teddy NCC fusion sweep it is also the faster of the two.
     """
     if method is None:
-        method = "sort" if jax.default_backend() == "tpu" else "scatter"
+        method = "sort"
     H, W = z.shape
     N = H * W
     comp = connected_components(z)
     acc_t = jnp.promote_types(theta0.dtype, jnp.float32)
 
     # Fold every contribution into ONE per-pixel delta map owned by a z
-    # pixel, so a single scatter-add produces the component sums (scatters
-    # serialize per element on TPU — five of them dominated this routine):
+    # pixel, so a single segment sum produces the component sums:
     #   - a z pixel owns its unary delta and all incident edge deltas,
     #   - an edge whose head keeps but whose tail flips is pushed back to
     #     the tail pixel (the only flipping endpoint) elementwise.
@@ -595,7 +593,7 @@ def binary_fuse(
     # per-component acceptance: flip exactly the improving components.
     # ``accept_method`` pins the verdict path ('sort' = reassociation-free
     # segmented scans — required for the sharded == single-device bitwise
-    # guarantee of parallel/fusion_dist.py); None = backend default.
+    # guarantee of parallel/fusion_dist.py); None = the default ('sort').
     take = accept_components(z, theta0, theta1, V, method=accept_method)
     energy = _k2_energy(take, theta0, theta1, V)
     # unconditional never-increase backstop (see docstring): revert to the

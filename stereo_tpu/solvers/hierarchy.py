@@ -80,7 +80,6 @@ def upsample_messages(messages, target_hw, f: int = 2):
 def solve_hierarchical(
     unary, D0, Q, alphas, *, kernel, tol, maxiter=1000, max_relgap=1e-4,
     levels: int = 3, coarse_sweeps: int = 300, check_every: int = 8,
-    use_pallas=None,
 ) -> TRWSResult:
     """Pyramid warm start + exact fine-level solve (same contract as
     trws.solve)."""
@@ -98,7 +97,7 @@ def solve_hierarchical(
         res = trws.solve(
             u, d0, q, al, kernel=kernel, tol=tol, maxiter=coarse_sweeps,
             max_relgap=max_relgap, messages=messages,
-            check_every=check_every, use_pallas=use_pallas,
+            check_every=check_every,
         )
         target_hw = pyramid[lvl - 1][0].shape[-2:]
         messages = upsample_messages(res.messages, target_hw)
@@ -107,13 +106,12 @@ def solve_hierarchical(
     return trws.solve(
         u, d0, q, al, kernel=kernel, tol=tol, maxiter=maxiter,
         max_relgap=max_relgap, messages=messages, check_every=check_every,
-        use_pallas=use_pallas,
     )
 
 
 def wavefront_warm_start(
     unary, D0, Q, alphas, *, kernel, tol, levels: int = 3,
-    coarse_sweeps: int = 200, use_pallas=None,
+    coarse_sweeps: int = 200,
 ):
     """Coarse-to-fine warm start for the *wavefront* (raster-order) solver:
     solve the coarsened pyramid with wavefront sweeps and return upsampled
@@ -140,7 +138,6 @@ def wavefront_warm_start(
         res = wavefront.solve_wavefront(
             u, d0, q, al, kernel=kernel, tol=tol, maxiter=coarse_sweeps,
             max_relgap=1e-12, messages=messages, check_every=coarse_sweeps,
-            use_pallas=use_pallas,
         )
         target_hw = pyramid[lvl - 1][0].shape[-2:]
         messages = upsample_messages(res.messages, target_hw)

@@ -31,11 +31,9 @@ phase first, accumulating the lower bound.
 Implementation: one ghost row of zero weights on top and bottom; a lax.scan
 over rows reads a [3, W] slab and writes back rows touched by the step.
 
-Empirical note (TPU v5e, baby2 K=15): a scanline sweep costs ~320 ms vs
-~4.4 ms for a checkerboard sweep (H sequential scan steps of [K, W] work
-under-utilize the VPU), while its per-sweep bound progress is only ~1.5x
-better — so the checkerboard schedule dominates in wall-clock on TPU and is
-the default; this module serves as an exact alternative ordering (useful as
+A scanline sweep is H sequential scan steps of [K, W] work, while its
+per-sweep bound progress is only ~1.5x the checkerboard's, so the
+checkerboard schedule is the default; this module serves as an exact alternative ordering (useful as
 an on-device oracle and for ordering-sensitivity studies), mirroring how the
 reference's convergence depends on SetAutomaticOrdering.
 """

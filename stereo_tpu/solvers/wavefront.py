@@ -1,11 +1,11 @@
 """Wavefront (anti-diagonal) TRW-S: the reference's *raster ordering*, exactly,
-data-parallel on TPU.
+data-parallel on the device.
 
 The host/reference serial TRW-S (cpp/trw-s/minimize.cpp:31-116) processes
 pixels in raster order; its monotonic chains span whole rows *and* whole
 columns, so the lower bound converges in a few hundred sweeps where the
 checkerboard ordering (solvers/trws.py) — whose chains are single edges —
-needs tens of thousands (see tools/race_report_r2_baseline.json).
+needs far more.
 
 Key observation: under raster order, pixel (y, x) depends only on (y, x-1)
 and (y-1, x) — both on the previous anti-diagonal t-1 = y+x-1.  Two pixels on
@@ -39,9 +39,6 @@ potential V(k_t, k_h) = alpha_e * TR(|Q[d][k_t] - D0[k_h]|) with Q/D0/alpha
 evaluated at the head pixel.  gamma(p) = 1/max(nFwd, nBwd)
 (treeProbabilities.cpp:12-47): under raster order nFwd = 2·#(later nbrs),
 nBwd = 2·#(earlier nbrs).
-
-A fused Pallas kernel with the same semantics lives in
-stereo_tpu/ops/wavefront_kernel.py; this file is its oracle and CPU path.
 """
 
 from __future__ import annotations
@@ -115,24 +112,15 @@ def raster_gamma(H: int, W: int, dtype=jnp.float32) -> jax.Array:
 # ---------------------------------------------------------- message updates
 # Leading batch axes (the stacked direction pair) broadcast through: all
 # inputs may carry [..., K, H] / [..., H] shapes.  One dense [..., K, K, H]
-# tensor per send keeps the scan-step body to a handful of fusable ops — a
-# per-label Python loop here costs ~100 tiny VPU launches per column and
-# dominated the sweep wall-clock (425 ms/sweep at baby2 K=15 on v5e).
+# expression per send keeps the scan-step body to a handful of fusable ops
+# (a per-label Python loop here costs ~100 tiny launches per column); XLA
+# fuses the broadcast into the min-reduction.
 def _send_head(gD, Mold, Q, D0, alpha, kernel, tol):
     """Head-send: msg'[k_t] = min_{k_h}(gD[k_h] - Mold[k_h] + a·TR(Q[k_t]-D0[k_h])).
 
     gD/Mold/Q/D0: [..., K, H]; alpha: [..., H].  Returns (normalized msg, vmin).
-
-    On TPU at large K the fused one-variant kernel takes over (the XLA
-    formulation materializes a [K, K, H] intermediate per send — ~all HBM
-    traffic at K~80; ops/minplus.minplus_send keeps the K x K walk in VMEM;
-    values agree to FP-contraction noise, ~1-2 ulp)."""
+    """
     Hs = gD - Mold  # [..., Kh, H]
-    from stereo_tpu.ops.minplus import minplus_send
-
-    fused = minplus_send(Hs, Q, D0, alpha, tol, kernel)
-    if fused is not None:
-        return fused
     term = alpha[..., None, None, :] * truncated_kernel(
         Q[..., None, :, :] - D0[..., :, None, :], kernel, tol)  # [..., Kh, Kt, H]
     acc = jnp.min(Hs[..., :, None, :] + term, axis=-3)  # [..., Kt, H]
@@ -143,11 +131,6 @@ def _send_head(gD, Mold, Q, D0, alpha, kernel, tol):
 def _send_tail(gD_tail, Mold, Q, D0, alpha, kernel, tol):
     """Tail-send: msg'[k_h] = min_{k_t}(gD_tail[k_t] - Mold[k_t] + a·TR(Q[k_t]-D0[k_h]))."""
     Hs = gD_tail - Mold  # [..., Kt, H]
-    from stereo_tpu.ops.minplus import minplus_send
-
-    fused = minplus_send(Hs, D0, Q, alpha, tol, kernel)  # targets = heads
-    if fused is not None:
-        return fused
     term = alpha[..., None, None, :] * truncated_kernel(
         Q[..., :, None, :] - D0[..., None, :, :], kernel, tol)  # [..., Kt, Kh, H]
     msg = jnp.min(Hs[..., :, None, :] + term, axis=-3)  # [..., Kh, H]
@@ -338,22 +321,17 @@ def solve_wavefront(
     max_relgap: float = 1e-4,
     messages: jax.Array | None = None,  # [4, K, H, W] warm start
     check_every: int = 1,
-    use_pallas: bool | None = None,
     unroll: int = 1,
 ) -> TRWSResult:
     """Raster-order TRW-S via anti-diagonal wavefronts; drop-in for trws.solve.
 
-    With use_pallas (auto on TPU) the per-sweep pass runs as the fused kernel
-    of ops/wavefront_kernel; otherwise as a lax.scan over skewed columns.
+    Each sweep is a lax.scan over skewed columns.
     """
     K, H, W = unary.shape
     dtype = unary.dtype
     sk = _Skewed(unary, positions, nbr_positions, alphas, kernel, tol)
     T = sk.T
     acc_t = jnp.promote_types(dtype, jnp.float32)
-
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
 
     if messages is None:
         messages = jnp.zeros((4, K, H, W), dtype)
@@ -418,18 +396,7 @@ def solve_wavefront(
     def decode(M):
         return decode_raster(sk, M)
 
-    sweep_fn = None
-    if use_pallas:
-        try:
-            from stereo_tpu.ops import wavefront_kernel as wfk
-
-            sweep_fn = wfk.make_sweep(sk)
-        except ImportError:  # fused kernel not built yet: scan path is exact
-            sweep_fn = None
-
     def sweep(M, _):
-        if sweep_fn is not None:
-            return sweep_fn(M)
         M, _ = lax.scan(fwd_col, M, jnp.arange(T), unroll=unroll)
         M, lbs = lax.scan(bwd_col, M, jnp.arange(T - 1, -1, -1),
                           unroll=unroll)

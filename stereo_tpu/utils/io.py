@@ -11,18 +11,94 @@ imrender/ojw/download_stereo.m:116-117 — P of view n shifts x by
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, field
+import struct
+import zlib
+from dataclasses import dataclass
 
 import numpy as np
 
 DATA_ROOT = os.path.join(os.path.dirname(__file__), "..", "..", "data")
 
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3}  # colour type -> samples per pixel
+
+
+def _unfilter_row(ftype: int, line: np.ndarray, prev: np.ndarray,
+                  bpp: int) -> np.ndarray:
+    """Undo one scanline's PNG filter (PNG spec section 9) on uint8 rows."""
+    if ftype == 0:
+        return line
+    if ftype == 1:  # Sub: running sum per byte lane, modulo 256
+        return (np.cumsum(line.reshape(-1, bpp).astype(np.int64), axis=0)
+                % 256).astype(np.uint8).reshape(-1)
+    if ftype == 2:  # Up
+        return (line.astype(np.int64) + prev).astype(np.uint8)
+    if ftype not in (3, 4):
+        raise ValueError(f"PNG: unknown filter type {ftype}")
+    out = line.astype(np.int64)
+    up = prev.astype(np.int64)
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        b = up[i]
+        if ftype == 3:  # Average
+            out[i] = (out[i] + (a + b) // 2) & 255
+            continue
+        c = up[i - bpp] if i >= bpp else 0  # Paeth
+        p = a + b - c
+        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+        pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+        out[i] = (out[i] + pred) & 255
+    return out.astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit greyscale ([H, W]) or RGB ([H, W, 3]) non-interlaced
+    PNG to uint8 with numpy and zlib alone."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        ctype = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(ctype + body) != crc:
+            raise ValueError(f"{path}: bad CRC in {ctype!r} chunk")
+        if ctype == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+        pos += 12 + length
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    W, H, depth, colour, _, _, interlace = header
+    if depth != 8 or colour not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(
+            f"{path}: unsupported PNG (bit depth {depth}, colour type "
+            f"{colour}, interlace {interlace}); need 8-bit grey or RGB, "
+            f"non-interlaced")
+    bpp = _PNG_CHANNELS[colour]
+    stride = W * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != H * (stride + 1):
+        raise ValueError(f"{path}: truncated image data")
+    rows = raw.reshape(H, stride + 1)
+    out = np.empty((H, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(H):
+        prev = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev, bpp)
+    return out.reshape(H, W, bpp) if bpp > 1 else out
+
 
 def load_image(path: str, dtype=np.float32) -> np.ndarray:
     """[H, W, 3] float image with values in [0, 255]."""
-    from PIL import Image
-
-    im = np.asarray(Image.open(path).convert("RGB"))
+    im = read_png(path)
+    if im.ndim == 2:
+        im = np.repeat(im[..., None], 3, axis=-1)
     return im.astype(dtype)
 
 
@@ -68,9 +144,9 @@ def load_ground_truth(name: str, root: str | None = None,
     for r in roots:
         path = os.path.join(r, name, "disp2.png")
         if os.path.exists(path):
-            from PIL import Image
-
-            raw = np.asarray(Image.open(path).convert("I")).astype(dtype)
+            raw = read_png(path).astype(dtype)
+            if raw.ndim == 3:
+                raise ValueError(f"{path}: ground truth must be greyscale")
             gt = raw / _PAIRS[name]["disparity_factor"]
             gt[raw == 0] = np.nan  # Middlebury: 0 marks unknown
             return gt

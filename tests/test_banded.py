@@ -24,7 +24,7 @@ def per_iteration_trace(theta, D0, Q, alphas, kernel, tol, Bh, Bw, n_iters):
         res = banded.solve_banded(
             jnp.asarray(theta), jnp.asarray(D0), jnp.asarray(Q),
             jnp.asarray(alphas), kernel=kernel, tol=tol, Bh=Bh, Bw=Bw,
-            maxiter=1, max_relgap=0.0, messages=msgs, use_pallas=False,
+            maxiter=1, max_relgap=0.0, messages=msgs,
         )
         msgs = res.messages
         out.append((float(res.energy), float(res.lower_bound),
@@ -89,10 +89,16 @@ def test_message_state_roundtrip():
     (3, 6, 5, 4, 6, 5),      # single block == raster
     (4, 9, 4, 3, 4, 4),      # Gy=3, Gx=1 (no x-seams)
     (5, 4, 9, 3, 4, 3),      # Gy=1, Gx=3 (no y-seams)
+    (6, 8, 10, 3, 4, 5),     # padding-free 2x2 blocks
+    (7, 9, 8, 4, 4, 4),      # padded rows, square blocks
+    (8, 10, 11, 3, 5, 4),    # padded cols
+    (12, 48, 40, 3, 8, 8),   # > 128 lanes (Gy*Gx*Bh = 240)
+    (11, 40, 47, 2, 8, 8),   # > 128 lanes, padded cols
 ])
 def test_matches_sequential_banded_oracle(kernel, seed, H, W, K, Bh, Bw):
     """Banded sweeps == sequential TRW-S under the banded order: energies,
-    bounds AND labels match the oracle to fp roundoff, every iteration."""
+    bounds AND labels match the oracle to fp roundoff, every iteration.
+    Iterations after the first are warm-started solves (messages in)."""
     rng = np.random.default_rng(seed)
     theta, D0, Q, alphas = oracles.grid_trws_inputs(rng, H, W, K,
                                                     kernel=kernel)
@@ -119,11 +125,9 @@ def test_single_block_equals_wavefront():
     args = (jnp.asarray(theta), jnp.asarray(D0), jnp.asarray(Q),
             jnp.asarray(alphas))
     b = banded.solve_banded(*args, kernel=1, tol=1.0, Bh=H, Bw=W,
-                            maxiter=3, max_relgap=0.0, check_every=3,
-                            use_pallas=False)
+                            maxiter=3, max_relgap=0.0, check_every=3)
     w = wavefront.solve_wavefront(*args, kernel=1, tol=1.0, maxiter=3,
-                                  max_relgap=0.0, check_every=3,
-                                  use_pallas=False)
+                                  max_relgap=0.0, check_every=3)
     assert float(b.energy) == pytest.approx(float(w.energy), rel=1e-12)
     assert float(b.lower_bound) == pytest.approx(float(w.lower_bound),
                                                  rel=1e-12)
@@ -139,8 +143,7 @@ def test_invariants_and_warm_start():
     theta, D0, Q, alphas = oracles.grid_trws_inputs(rng, H, W, K)
     args = (jnp.asarray(theta), jnp.asarray(D0), jnp.asarray(Q),
             jnp.asarray(alphas))
-    kw = dict(kernel=1, tol=1.0, Bh=Bh, Bw=Bw, max_relgap=0.0,
-              use_pallas=False)
+    kw = dict(kernel=1, tol=1.0, Bh=Bh, Bw=Bw, max_relgap=0.0)
 
     lbs = []
     msgs = None
@@ -169,15 +172,14 @@ def test_banded_run_matches_solve():
     theta, D0, Q, alphas = oracles.grid_trws_inputs(rng, H, W, K)
     args = (jnp.asarray(theta), jnp.asarray(D0), jnp.asarray(Q),
             jnp.asarray(alphas))
-    run = banded.BandedRun(*args, kernel=1, tol=1.0, Bh=Bh, Bw=Bw,
-                           use_pallas=False)
+    run = banded.BandedRun(*args, kernel=1, tol=1.0, Bh=Bh, Bw=Bw)
     state = run.init_state()
     msgs = None
     for _ in range(3):
         state, e, lb, labels = run.run(state, 2)
         ref = banded.solve_banded(*args, kernel=1, tol=1.0, Bh=Bh, Bw=Bw,
                                   maxiter=2, max_relgap=0.0, check_every=2,
-                                  messages=msgs, use_pallas=False)
+                                  messages=msgs)
         msgs = ref.messages
         assert float(e) == pytest.approx(float(ref.energy), rel=1e-9)
         assert float(lb) == pytest.approx(float(ref.lower_bound), rel=1e-9)
@@ -200,10 +202,8 @@ def test_banded_run_raster_decode():
     args = tuple(jnp.asarray(x) for x in (theta, D0, Q, alphas))
 
     # degenerate single block: raster == banded order
-    rb = banded.BandedRun(*args, kernel=1, tol=1.0, Bh=H, Bw=W,
-                          use_pallas=False)
-    rr = banded.BandedRun(*args, kernel=1, tol=1.0, Bh=H, Bw=W,
-                          use_pallas=False, decode="raster")
+    rb = banded.BandedRun(*args, kernel=1, tol=1.0, Bh=H, Bw=W)
+    rr = banded.BandedRun(*args, kernel=1, tol=1.0, Bh=H, Bw=W, decode="raster")
     _, eb, lbb, Lb = rb.run(rb.init_state(), 4, 2)
     _, er, lbr, Lr = rr.run(rr.init_state(), 4, 2)
     np.testing.assert_array_equal(np.asarray(Lb), np.asarray(Lr))
@@ -211,8 +211,7 @@ def test_banded_run_raster_decode():
     assert float(lbb) == pytest.approx(float(lbr), rel=1e-12)
 
     # generic blocks: decode energy == true energy of the decoded labels
-    rg = banded.BandedRun(*args, kernel=1, tol=1.0, Bh=4, Bw=3,
-                          use_pallas=False, decode="raster")
+    rg = banded.BandedRun(*args, kernel=1, tol=1.0, Bh=4, Bw=3, decode="raster")
     _, eg, lbg, Lg = rg.run(rg.init_state(), 6, 3)
     e_true = trws_mod.labeling_energy(jnp.asarray(np.asarray(Lg)), *args,
                                       kernel=1, tol=1.0)

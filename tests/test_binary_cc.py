@@ -95,3 +95,17 @@ def test_accept_components_sort_matches_scatter():
         a = binary.accept_components(z, theta0, theta1, V, method="scatter")
         b = binary.accept_components(z, theta0, theta1, V, method="sort")
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("method", ["sort", "scatter"])
+def test_accept_components_repeatable(method):
+    """The same decoded mask accepted twice gives the same take-mask."""
+    rng = np.random.default_rng(21)
+    H, W = 24, 31
+    z = jnp.asarray(rng.random((H, W)) < 0.5)
+    theta0, theta1 = (jnp.asarray(rng.normal(0, 1, (H, W)), jnp.float32)
+                      for _ in range(2))
+    V = jnp.asarray(rng.normal(0, 1, (4, 2, 2, H, W)), jnp.float32)
+    a = binary.accept_components(z, theta0, theta1, V, method=method)
+    b = binary.accept_components(z, theta0, theta1, V, method=method)
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

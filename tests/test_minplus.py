@@ -1,205 +1,130 @@
-"""Fused min-plus kernel: Pallas (interpret mode) vs the XLA reference."""
+"""Min-plus message updates against numpy brute force.
+
+The pair update (ops/minplus.minplus_pair_xla), the banded/wavefront sends
+(solvers/wavefront._send_head/_send_tail) and the checkerboard phase
+(solvers/trws._phase) are all the same dense K x K min-plus per pixel; each is
+pinned here to a float64 numpy evaluation of that table."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
+from stereo_tpu import geometry
 from stereo_tpu.ops import minplus
+from stereo_tpu.solvers import trws, wavefront
 
 
-@pytest.mark.parametrize("kernel", [1, 2])
-@pytest.mark.parametrize("K,H,W", [(3, 5, 7), (15, 9, 130), (2, 8, 512)])
-def test_pallas_matches_xla(kernel, K, H, W):
-    rng = np.random.default_rng(0)
-    f = jnp.float32
-    H_A = jnp.asarray(rng.normal(0, 3, (K, H, W)), f)
-    H_B = jnp.asarray(rng.normal(0, 3, (K, H, W)), f)
-    P = jnp.asarray(rng.normal(0, 2, (K, H, W)), f)
-    R = jnp.asarray(rng.normal(0, 2, (K, H, W)), f)
-    alpha = jnp.asarray(rng.uniform(0, 2, (H, W)), f)
+def _tr(x, kernel, tol):
+    return np.minimum(np.abs(x) if kernel == 1 else x * x, tol)
+
+
+def _check_pair(K, H, W, kernel, seed):
+    rng = np.random.default_rng(seed)
+    H_A, H_B = rng.normal(0, 3, (2, K, H, W))
+    P, R = rng.normal(0, 2, (2, K, H, W))
+    alpha = rng.uniform(0, 2, (H, W))
     tol = 1.3
-
-    a_ref, b_ref = minplus.minplus_pair_xla(H_A, H_B, P, R, alpha, kernel, tol)
-    a_pl, b_pl = minplus.minplus_pair_pallas(H_A, H_B, P, R, alpha,
-                                             jnp.float32(tol), kernel,
-                                             interpret=True)
-    np.testing.assert_allclose(np.asarray(a_pl), np.asarray(a_ref), rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(b_pl), np.asarray(b_ref), rtol=1e-4, atol=1e-5)
-
-
-def test_variants_are_transposes_of_same_table():
-    """msgA/msgB correspond to row/column reductions of the same cost table."""
-    rng = np.random.default_rng(1)
-    K, H, W = 4, 3, 3
-    H_A = rng.normal(0, 1, (K, H, W))
-    H_B = rng.normal(0, 1, (K, H, W))
-    P = rng.normal(0, 1, (K, H, W))
-    R = rng.normal(0, 1, (K, H, W))
-    alpha = rng.uniform(0, 1, (H, W))
-    tol = 0.8
-    a, b = minplus.minplus_pair_xla(*(jnp.asarray(x) for x in (H_A, H_B, P, R, alpha)), 1, tol)
-    for y in range(H):
-        for x in range(W):
-            C = alpha[y, x] * np.minimum(
-                np.abs(P[:, y, x][:, None] - R[:, y, x][None, :]), tol)
-            np.testing.assert_allclose(
-                np.asarray(a)[:, y, x], (H_A[:, y, x][:, None] + C).min(0),
-                rtol=1e-6)
-            np.testing.assert_allclose(
-                np.asarray(b)[:, y, x], (H_B[:, y, x][None, :] + C).min(1),
-                rtol=1e-6)
+    a, b = minplus.minplus_pair_xla(
+        *(jnp.asarray(x) for x in (H_A, H_B, P, R, alpha)), kernel, tol)
+    # C[i, j] = alpha * TR(P_i - R_j) per pixel
+    C = alpha * _tr(P[:, None] - R[None, :], kernel, tol)
+    np.testing.assert_allclose(np.asarray(a), (H_A[:, None] + C).min(0),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(b), (H_B[None, :] + C).min(1),
+                               rtol=1e-12, atol=1e-12)
 
 
-def test_fused_phase_kernel_matches_xla_phase():
-    """phase_messages_pallas (interpret) == the per-direction XLA path."""
-    import jax.numpy as jnp
-    from stereo_tpu import geometry
-    from stereo_tpu.ops.phase_kernel import phase_messages_pallas
-    from stereo_tpu.solvers import trws
-
-    rng = np.random.default_rng(0)
-    K, H, W = 4, 6, 9
-    f = jnp.float32
-    theta = jnp.asarray(rng.uniform(0, 4, (K, H, W)), f)
-    D0 = jnp.asarray(rng.normal(0, 2, (K, H, W)), f)
-    Q = jnp.asarray(rng.normal(0, 2, (4, K, H, W)), f)
-    alphas = jnp.asarray(rng.uniform(0.5, 2, (4, H, W)), f)
-    M = jnp.asarray(rng.normal(0, 1, (4, K, H, W)), f)
-    valid = jnp.stack([geometry.valid_mask(H, W, d, dtype=f) for d in range(4)], 0)
-    alphas = alphas * valid
-    gamma = trws.node_gamma(H, W, f)
-    cb = trws.checkerboard(H, W)
-    tol = 1.1
-
-    for color in (0, 1):
-        want, _, want_lb = trws._phase(theta, M, D0, Q, alphas, valid, gamma,
-                                       cb, color, 1, tol, accumulate_lb=True,
-                                       use_pallas=False)
-        Dall = trws._node_beliefs(theta, M)
-        vminD = jnp.min(Dall, axis=0)
-        gD = gamma[None] * (Dall - vminD[None])
-        gDs = jnp.stack([geometry.shift_from_neighbor(gD, d, 0.0)
-                         for d in range(4)], 0)
-        got, vmins = phase_messages_pallas(
-            gD, gDs, M, Q, D0, alphas, (cb == color).astype(f), valid,
-            jnp.float32(tol), 1, interpret=True,
-        )
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=1e-5, atol=1e-5)
+def _check_send(K, L, kernel, seed, fn):
+    rng = np.random.default_rng(seed)
+    gD, M = rng.normal(0, 3, (2, 2, K, L))
+    Q = rng.normal(0, 5, (2, K, L))
+    D0 = rng.normal(0, 5, (1, K, L))
+    alpha = rng.random((2, L))
+    tol = 2.0
+    msg, vmin = getattr(wavefront, fn)(
+        *(jnp.asarray(x) for x in (gD, M, Q, D0, alpha)), kernel, tol)
+    h = gD - M
+    if fn == "_send_head":  # msg[t] = min_h h[h] + a TR(Q[t] - D0[h])
+        C = _tr(Q[:, :, None] - D0[:, None, :], kernel, tol)
+    else:  # msg[h] = min_t h[t] + a TR(Q[t] - D0[h])
+        C = _tr(Q[:, None, :] - D0[:, :, None], kernel, tol)
+    want = np.min(h[:, None] + alpha[:, None, None] * C, axis=2)
+    want_min = want.min(axis=1)
+    np.testing.assert_allclose(np.asarray(vmin), want_min, rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(np.asarray(msg), want - want_min[:, None],
+                               rtol=1e-12, atol=1e-12)
 
 
-def test_fused_phase_kernel_bf16_messages():
-    """bf16 message storage through the fused kernel (interpret): output
-    dtype follows the storage, values match the f32 path computed from the
-    same (bf16-rounded) inputs to f32 roundoff, minima stay f32."""
-    import jax.numpy as jnp
-    from stereo_tpu import geometry
-    from stereo_tpu.ops.phase_kernel import phase_messages_pallas
-    from stereo_tpu.solvers import trws
+@pytest.mark.parametrize("case", [
+    ("pair", 4, 3, 3, 1),
+    ("pair", 3, 5, 7, 1), ("pair", 3, 5, 7, 2),
+    ("pair", 15, 9, 130, 1), ("pair", 15, 9, 130, 2),
+    ("pair", 2, 8, 512, 1), ("pair", 2, 8, 512, 2),
+    ("_send_head", 7, 130, None, 1), ("_send_tail", 7, 130, None, 1),
+    ("_send_head", 26, 384, None, 1), ("_send_tail", 26, 384, None, 1),
+    ("_send_head", 33, 200, None, 2), ("_send_tail", 33, 200, None, 2),
+], ids=lambda c: "-".join(str(v) for v in c if v is not None))
+def test_variants_are_transposes_of_same_table(case):
+    """msgA/msgB (and the one-variant sends) are row/column reductions of
+    the same per-pixel cost table, computed here by brute force."""
+    fn, K, a, b, kernel = case
+    if fn == "pair":
+        _check_pair(K, a, b, kernel, seed=K + a)
+    else:
+        _check_send(K, a, kernel, seed=K, fn=fn)
 
+
+def _phase_oracle(theta, M, D0, Q, alphas, valid, gamma, color, kernel, tol):
+    """Per-direction numpy evaluation of one checkerboard half-iteration."""
+    K, H, W = theta.shape
+    Mf = M.astype(np.float64)
+    D = theta + Mf.sum(0)
+    for d in range(4):
+        D = D + np.asarray(geometry.shift_from_neighbor(
+            jnp.asarray(Mf[geometry.OPP[d]]), d, fill=0.0))
+    D = D - D.min(0)[None]
+    gD = gamma[None] * D
+    cb = (np.add.outer(np.arange(H), np.arange(W)) % 2) == color
+    out = np.empty((4, K, H, W))
+    for d in range(4):
+        gDn = np.asarray(geometry.shift_from_neighbor(jnp.asarray(gD), d,
+                                                      fill=0.0))
+        C = alphas[d] * _tr(Q[d][:, None] - D0[None, :], kernel, tol)
+        msgA = np.min((gDn - Mf[d])[:, None] + C, axis=0)  # tail is source
+        msgB = np.min((gD - Mf[d])[None, :] + C, axis=1)  # head is source
+        msg = np.where(cb[None], msgB, msgA)
+        out[d] = (msg - msg.min(0)[None]) * valid[d][None]
+    return out
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_phase_matches_numpy_oracle(storage):
+    """The XLA checkerboard phase (solvers/trws._phase) in float32, with
+    messages stored in float32 or bfloat16, against the float64 oracle on
+    the same (rounded) inputs; the output keeps the storage dtype."""
     rng = np.random.default_rng(5)
-    K, H, W = 4, 6, 9
+    K, H, W, kernel, tol = 4, 6, 9, 1, 1.1
     f = jnp.float32
-    theta = jnp.asarray(rng.uniform(0, 4, (K, H, W)), f)
-    D0 = jnp.asarray(rng.normal(0, 2, (K, H, W)), f)
-    Q = jnp.asarray(rng.normal(0, 2, (4, K, H, W)), f)
-    alphas = jnp.asarray(rng.uniform(0.5, 2, (4, H, W)), f)
-    valid = jnp.stack(
-        [geometry.valid_mask(H, W, d, dtype=f) for d in range(4)], 0)
-    alphas = alphas * valid
-    gamma = trws.node_gamma(H, W, f)
+    theta = rng.uniform(0, 4, (K, H, W)).astype(np.float32)
+    D0 = rng.normal(0, 2, (K, H, W)).astype(np.float32)
+    Q = rng.normal(0, 2, (4, K, H, W)).astype(np.float32)
+    valid = np.stack([np.asarray(geometry.valid_mask(H, W, d, dtype=f))
+                      for d in range(4)])
+    alphas = (rng.uniform(0.5, 2, (4, H, W)) * valid).astype(np.float32)
+    M = np.asarray(jnp.asarray(rng.normal(0, 1, (4, K, H, W)),
+                               jnp.dtype(storage)))
+    gamma = np.asarray(trws.node_gamma(H, W, f))
     cb = trws.checkerboard(H, W)
-    tol = 1.1
-    M16 = jnp.asarray(rng.normal(0, 1, (4, K, H, W)), jnp.bfloat16)
-
-    Dall = trws._node_beliefs(theta, M16)
-    gD = gamma[None] * Dall
-    gDs = jnp.stack([geometry.shift_from_neighbor(gD, d, 0.0)
-                     for d in range(4)], 0)
-    got16, vmins16 = phase_messages_pallas(
-        gD, gDs, M16, Q, D0, alphas, (cb == 0).astype(f), valid,
-        jnp.float32(tol), 1, interpret=True)
-    assert got16.dtype == jnp.bfloat16
-    assert vmins16.dtype == f
-
-    got32, vmins32 = phase_messages_pallas(
-        gD, gDs, M16.astype(f), Q, D0, alphas, (cb == 0).astype(f), valid,
-        jnp.float32(tol), 1, interpret=True)
-    np.testing.assert_allclose(np.asarray(vmins16), np.asarray(vmins32),
-                               rtol=1e-6, atol=1e-6)
-    # the bf16 output is the f32 result rounded once to bf16
-    np.testing.assert_allclose(
-        np.asarray(got16, np.float32),
-        np.asarray(got32.astype(jnp.bfloat16), np.float32),
-        rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("K,L,kernel", [(7, 130, 1), (26, 384, 1),
-                                        (33, 200, 2)])
-def test_minplus_send_pallas_matches_xla(K, L, kernel):
-    """One-variant send kernel (interpret) == the XLA head-send math to
-    FP-contraction noise (~1-2 ulp: FMA fusion differs across programs)."""
-    from stereo_tpu.ops.minplus import minplus_send_pallas
-    from stereo_tpu.energy import truncated_kernel as TR
-
-    rng = np.random.default_rng(0)
-    hs = jnp.asarray(rng.standard_normal((K, L)), jnp.float32)
-    p = jnp.asarray(rng.standard_normal((K, L)) * 5, jnp.float32)
-    r = jnp.asarray(rng.standard_normal((K, L)) * 5, jnp.float32)
-    al = jnp.asarray(rng.random((L,)), jnp.float32)
-    term = al[None, None, :] * TR(p[None, :, :] - r[:, None, :], kernel, 2.0)
-    acc = jnp.min(hs[:, None, :] + term, axis=0)
-    vmin = jnp.min(acc, axis=0)
-    m, v = minplus_send_pallas(hs, p, r, al, 2.0, kernel, interpret=True)
-    np.testing.assert_allclose(np.asarray(m), np.asarray(acc - vmin[None]),
-                               rtol=0, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(v), np.asarray(vmin), rtol=1e-6,
-                               atol=1e-5)
-
-
-def test_minplus_send_integrates_with_banded_scan(monkeypatch):
-    """Pin the send-kernel dispatch inside a real solver: run a banded
-    sweep with the fused path forced (interpret mode) and compare against
-    the pure-XLA scan.  Catches orientation/broadcast regressions in
-    _send_head/_send_tail's p/r mapping that only TPU runs would otherwise
-    see (the dispatcher gates on backend == tpu and K >= 24)."""
-    import oracles
-    from stereo_tpu.ops import minplus
-    from stereo_tpu.solvers import banded
-
-    calls = []
-
-    def forced(hs, p, r, alpha, tol, kernel, min_k=24):
-        calls.append(1)
-        K = hs.shape[-2]
-        L = hs.shape[-1]
-        lead = jnp.broadcast_shapes(hs.shape[:-2], p.shape[:-2],
-                                    r.shape[:-2], alpha.shape[:-1])
-        hs = jnp.broadcast_to(hs, lead + (K, L)).reshape((-1, K, L))
-        p = jnp.broadcast_to(p, lead + (K, L)).reshape((-1, K, L))
-        r = jnp.broadcast_to(r, lead + (K, L)).reshape((-1, K, L))
-        alpha = jnp.broadcast_to(alpha, lead + (L,)).reshape((-1, L))
-        ms, vs = zip(*(minplus.minplus_send_pallas(
-            hs[b].astype(jnp.float32), p[b].astype(jnp.float32),
-            r[b].astype(jnp.float32), alpha[b].astype(jnp.float32),
-            tol, kernel, interpret=True) for b in range(hs.shape[0])))
-        return (jnp.stack(ms).reshape(lead + (K, L)).astype(jnp.float64),
-                jnp.stack(vs).reshape(lead + (L,)).astype(jnp.float64))
-
-    rng = np.random.default_rng(0)
-    H, W, K = 12, 10, 5
-    args = tuple(jnp.asarray(x)
-                 for x in oracles.grid_trws_inputs(rng, H, W, K))
-    ref = banded.solve_banded(*args, kernel=1, tol=1.0, Bh=4, Bw=5,
-                              maxiter=3, max_relgap=0.0, use_pallas=False)
-    monkeypatch.setattr(minplus, "minplus_send", forced)
-    res = banded.solve_banded(*args, kernel=1, tol=1.0, Bh=4, Bw=5,
-                              maxiter=3, max_relgap=0.0, use_pallas=False)
-    # forced path computes in f32; agreement to f32 resolution
-    np.testing.assert_allclose(float(res.energy), float(ref.energy),
-                               rtol=1e-5)
-    np.testing.assert_allclose(float(res.lower_bound),
-                               float(ref.lower_bound), rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(res.labels),
-                                  np.asarray(ref.labels))
-    assert calls, "forced fused path never engaged"
+    for color in (0, 1):
+        got, _, _ = trws._phase(
+            jnp.asarray(theta), jnp.asarray(M), jnp.asarray(D0),
+            jnp.asarray(Q), jnp.asarray(alphas), jnp.asarray(valid),
+            jnp.asarray(gamma), cb, color, kernel, tol, accumulate_lb=True)
+        assert got.dtype == jnp.dtype(storage)
+        want = _phase_oracle(theta, np.asarray(M, np.float64), D0, Q,
+                             alphas, valid, gamma, color, kernel, tol)
+        # float32 arithmetic, then one rounding to the storage dtype
+        rtol = 1e-5 if storage == "float32" else 2 ** -8
+        np.testing.assert_allclose(np.asarray(got, np.float64), want,
+                                   rtol=rtol, atol=rtol * 8)

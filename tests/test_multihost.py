@@ -76,7 +76,7 @@ def test_two_process_banded_matches_single():
     run = banded.BandedRun(
         jnp.asarray(theta, jnp.float32), jnp.asarray(D0, jnp.float32),
         jnp.asarray(Q, jnp.float32), jnp.asarray(alphas, jnp.float32),
-        kernel=1, tol=1.0, Bh=2, Bw=4, use_pallas=False)
+        kernel=1, tol=1.0, Bh=2, Bw=4)
     _, e1, lb1, L1 = run.run(run.init_state(), 4, 2)
     ck1 = int(np.asarray(L1).astype(np.int64).sum())
 

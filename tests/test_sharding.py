@@ -207,7 +207,7 @@ def _banded_ref_and_dist(H, W, K, Bh, Bw, kernel, n, sweeps, dec, seed=0,
     theta, D0, Q, alphas = (jnp.asarray(x)
                             for x in oracles.grid_trws_inputs(rng, H, W, K))
     run = banded.BandedRun(theta, D0, Q, alphas, kernel=kernel, tol=1.0,
-                           Bh=Bh, Bw=Bw, use_pallas=False)
+                           Bh=Bh, Bw=Bw)
     st = run.init_state()
     msgs_in = None
     if warm:
@@ -283,7 +283,7 @@ def test_sharded_banded_batched_pairs():
     assert res.energy.shape == (2,)
     for i, inp in enumerate((a, b)):
         run = banded.BandedRun(*(jnp.asarray(x) for x in inp), kernel=1,
-                               tol=1.0, Bh=Bh, Bw=Bw, use_pallas=False)
+                               tol=1.0, Bh=Bh, Bw=Bw)
         _, bestE, lb, bestL = run.run(run.init_state(), 4, 2)
         np.testing.assert_array_equal(np.asarray(res.labels[i]),
                                       np.asarray(bestL))

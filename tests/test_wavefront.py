@@ -22,7 +22,7 @@ def per_iteration_trace(theta, D0, Q, alphas, kernel, tol, n_iters):
         res = wavefront.solve_wavefront(
             jnp.asarray(theta), jnp.asarray(D0), jnp.asarray(Q),
             jnp.asarray(alphas), kernel=kernel, tol=tol, maxiter=1,
-            max_relgap=0.0, messages=msgs, use_pallas=False,
+            max_relgap=0.0, messages=msgs,
         )
         msgs = res.messages
         out.append((float(res.energy), float(res.lower_bound),
@@ -51,10 +51,12 @@ def test_skew_roundtrip():
 @pytest.mark.parametrize("kernel", [1, 2])
 @pytest.mark.parametrize("seed,H,W,K", [(0, 4, 5, 3), (1, 3, 6, 4),
                                         (2, 5, 5, 2), (3, 1, 6, 3),
-                                        (4, 6, 1, 3)])
+                                        (4, 6, 1, 3), (5, 6, 9, 3),
+                                        (12, 7, 6, 4)])
 def test_matches_sequential_raster_oracle(kernel, seed, H, W, K):
     """Wavefront == sequential raster TRW-S: energies, bounds AND labels
-    match the oracle to fp roundoff, every iteration."""
+    match the oracle to fp roundoff, every iteration.  Iterations after the
+    first are warm-started solves (messages in)."""
     rng = np.random.default_rng(seed)
     theta, D0, Q, alphas = oracles.grid_trws_inputs(rng, H, W, K, kernel=kernel)
     tol = 1.0
@@ -86,8 +88,7 @@ def test_invariants_and_vs_checkerboard():
     msgs = None
     for _ in range(8):
         res = wavefront.solve_wavefront(*args, kernel=1, tol=tol, maxiter=1,
-                                        max_relgap=0.0, messages=msgs,
-                                        use_pallas=False)
+                                        max_relgap=0.0, messages=msgs)
         msgs = res.messages
         lbs.append(float(res.lower_bound))
         assert float(res.lower_bound) <= float(res.energy) + 1e-9
@@ -105,12 +106,11 @@ def test_warm_start_continuation():
     args = (jnp.asarray(theta), jnp.asarray(D0), jnp.asarray(Q),
             jnp.asarray(alphas))
     a = wavefront.solve_wavefront(*args, kernel=1, tol=1.0, maxiter=2,
-                                  max_relgap=0.0, use_pallas=False)
+                                  max_relgap=0.0)
     r1 = wavefront.solve_wavefront(*args, kernel=1, tol=1.0, maxiter=1,
-                                   max_relgap=0.0, use_pallas=False)
+                                   max_relgap=0.0)
     r2 = wavefront.solve_wavefront(*args, kernel=1, tol=1.0, maxiter=1,
-                                   max_relgap=0.0, messages=r1.messages,
-                                   use_pallas=False)
+                                   max_relgap=0.0, messages=r1.messages)
     assert float(a.energy) == pytest.approx(float(r2.energy), rel=1e-12)
     assert float(a.lower_bound) == pytest.approx(float(r2.lower_bound),
                                                  rel=1e-12)
